@@ -3,8 +3,8 @@
 The analog of the reference's examples/decode_to_pnm.c."""
 import sys
 
-from gpujpeg_tpu import Decoder
-from gpujpeg_tpu.utils import image_io
+from gpujpeg_jax import Decoder
+from gpujpeg_jax.utils import image_io
 
 
 def main():

@@ -1,14 +1,14 @@
 """Zero-host-copy round trip with JAX device arrays.
 
-The TPU analog of the reference's OpenGL / CUDA-buffer interop
+The analog of the reference's OpenGL / CUDA-buffer interop
 (examples/decode_to_cuda_pnm.c, encode from GPU memory): the encoder
 accepts a device-resident frame and the decoder can leave its output on
 device, so producer/consumer pipelines never bounce through the host."""
 import jax.numpy as jnp
 import numpy as np
 
-from gpujpeg_tpu import Decoder, Encoder, ImageParameters, Parameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax import Decoder, Encoder, ImageParameters, Parameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 
 def main():

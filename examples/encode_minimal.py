@@ -3,8 +3,8 @@
 The analog of the reference's examples/encode_minimal.c."""
 import numpy as np
 
-from gpujpeg_tpu import Encoder, ImageParameters, Parameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax import Encoder, ImageParameters, Parameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 
 def main():

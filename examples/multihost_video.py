@@ -3,8 +3,10 @@ frame's MCU-row bands sharded across that process's local devices —
 encode and decode (SURVEY §2.3; the single-GPU reference has no
 distributed story at all).
 
-Launch one process per host. On a real TPU pod, ``init_distributed()``
-auto-discovers the cluster; for a CPU demonstration spawn it twice:
+Launch one process per host (or per GPU). Under a cluster launcher JAX
+can detect (SLURM, MPI), ``init_distributed()`` finds the coordinator
+by itself; elsewhere pass it explicitly, as this CPU demonstration
+does by spawning it twice:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
         python examples/multihost_video.py 0 2 localhost:9876 &
@@ -15,13 +17,13 @@ import sys
 
 import numpy as np
 
-from gpujpeg_tpu import ImageParameters, Parameters
-from gpujpeg_tpu.parallel import (
+from gpujpeg_jax import ImageParameters, Parameters
+from gpujpeg_jax.parallel import (
     MultiHostDecoder,
     MultiHostEncoder,
     init_distributed,
 )
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 
 def main():
@@ -30,7 +32,7 @@ def main():
                              sys.argv[3])
         init_distributed(coord, num_processes=nproc, process_id=pid)
     else:
-        init_distributed()          # cluster auto-discovery (TPU pods)
+        init_distributed()          # cluster launcher auto-discovery
 
     import jax
     H, W = 256, 320

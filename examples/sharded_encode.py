@@ -7,9 +7,9 @@ Run on CPU for demonstration:
 """
 import numpy as np
 
-from gpujpeg_tpu import Encoder, ImageParameters, Parameters
-from gpujpeg_tpu.parallel import ShardedEncoder, choose_restart_interval
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax import Encoder, ImageParameters, Parameters
+from gpujpeg_jax.parallel import ShardedEncoder, choose_restart_interval
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 
 def main():

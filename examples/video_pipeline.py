@@ -13,7 +13,7 @@ import time
 
 import numpy as np
 
-import gpujpeg_tpu as gj
+import gpujpeg_jax as gj
 
 H, W = 720, 1280
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 16

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpujpeg_tpu import cli
-from gpujpeg_tpu.params import ImageParameters
-from gpujpeg_tpu.types import PixelFormat
-from gpujpeg_tpu.utils import image_io
+from gpujpeg_jax import cli
+from gpujpeg_jax.params import ImageParameters
+from gpujpeg_jax.types import PixelFormat
+from gpujpeg_jax.utils import image_io
 
 from conftest import make_test_rgb, psnr
 
@@ -102,7 +102,7 @@ def test_cli_missing_files():
 def test_cli_y4m_video_batch(tmp_path):
     """Y4M multi-frame batch encode via %d output pattern (reference
     video flow, BASELINE config 5 surface)."""
-    from gpujpeg_tpu.utils.image_io import Y4mInfo, y4m_write
+    from gpujpeg_jax.utils.image_io import Y4mInfo, y4m_write
     H, W = 32, 48
     frames = [make_test_rgb(H, W, seed=s) for s in range(3)]
     # 4:4:4 Y4M from RGB channels treated as planes is enough for the

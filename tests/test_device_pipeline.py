@@ -1,17 +1,18 @@
-"""Device (JAX) pipeline vs golden oracle — runs on CPU backend in tests,
-exercising the exact code path that runs on TPU."""
+"""Device (JAX) pipeline vs golden oracle — runs on the CPU backend in
+tests, exercising the device code path (the GPU runs the same code, with
+the Huffman decode kernel in place of the XLA decoder)."""
 import io
 
 import numpy as np
 import pytest
 from PIL import Image
 
-from gpujpeg_tpu import (
+from gpujpeg_jax import (
     ColorSpace, Decoder, Encoder, ImageParameters, Parameters, PixelFormat,
 )
-from gpujpeg_tpu.plan import make_plan
-from gpujpeg_tpu.tables import quant_table_zz, default_huffman_table
-from gpujpeg_tpu.types import ComponentType, HuffmanType
+from gpujpeg_jax.plan import make_plan
+from gpujpeg_jax.tables import quant_table_zz, default_huffman_table
+from gpujpeg_jax.types import ComponentType, HuffmanType
 from tests.conftest import make_test_rgb, psnr
 
 
@@ -27,28 +28,32 @@ def _tables(quality):
 
 def test_device_dct_matches_golden():
     import jax.numpy as jnp
-    from gpujpeg_tpu.ops import golden
-    from gpujpeg_tpu.ops.dct import fdct_quant_device, dequant_idct_device
+    from gpujpeg_jax.ops import golden
+    from gpujpeg_jax.ops.dct import (
+        dequant_idct_device, fdct_quant_rows, fdct_split_operator,
+        idct_split_operator)
     rng = np.random.default_rng(3)
-    blocks = rng.integers(0, 256, (256, 64)).astype(np.uint8)
+    blocks = rng.integers(0, 256, (4096, 64)).astype(np.uint8)
+    d_hi, d_lo = (jnp.asarray(a) for a in fdct_split_operator())
     for q in (10, 50, 75, 100):
         qt = quant_table_zz(ComponentType.LUMINANCE, q)
         want = golden.fdct_quant(blocks, qt)
-        from gpujpeg_tpu.tables import fdct_quant_matrix, idct_dequant_matrix
-        M, bias = fdct_quant_matrix(qt)
-        got = np.asarray(fdct_quant_device(
-            jnp.asarray(blocks), jnp.asarray(M.astype(np.float32)),
-            jnp.asarray(bias.astype(np.float32))))
-        # f32 vs f64 rounding may differ by 1 near .5 boundaries; on pure
-        # noise at Q100 (quant=1) that's ~0.4% of coefficients
+        got = np.asarray(fdct_quant_rows(
+            jnp.asarray(blocks), d_hi, d_lo,
+            jnp.asarray(np.asarray(qt, np.float32))))
+        # float32 vs the float64 golden may differ by 1 only where the
+        # quotient sits within ~1e-6 of a .5 boundary — even on pure
+        # noise at Q100 (quant=1)
         assert np.abs(got - want).max() <= 1, q
-        assert (got != want).mean() < 5e-3, q
+        assert (got != want).mean() < 1e-5, q
 
-        W = idct_dequant_matrix(qt)
         pix_want = golden.dequant_idct(want, qt)
+        i_hi, i_lo = (jnp.asarray(a) for a in idct_split_operator())
         pix_got = np.asarray(dequant_idct_device(
-            jnp.asarray(want), jnp.asarray(W.astype(np.float32))))
+            jnp.asarray(want), jnp.asarray(np.asarray(qt, np.float32)),
+            i_hi, i_lo))
         assert np.abs(pix_got.astype(int) - pix_want.astype(int)).max() <= 1
+        assert (pix_got != pix_want).mean() < 1e-5, q
 
 
 @pytest.mark.parametrize("quality,ri,interleaved,sub", [
@@ -61,12 +66,12 @@ def test_device_huffman_encode_matches_golden(quality, ri, interleaved, sub):
     """The vectorized device entropy coder must produce byte-identical
     segments to the serial golden coder, given identical coefficients."""
     import jax.numpy as jnp
-    from gpujpeg_tpu.ops import golden
-    from gpujpeg_tpu.ops.blocks import plane_to_blocks
-    from gpujpeg_tpu.ops.preprocess import preprocess
-    from gpujpeg_tpu.ops.huffman_encode import (
+    from gpujpeg_jax.ops import golden
+    from gpujpeg_jax.ops.blocks import plane_to_blocks
+    from gpujpeg_jax.ops.preprocess import preprocess
+    from gpujpeg_jax.ops.huffman_encode import (
         build_enc_geometry, build_enc_tables, huffman_encode_kernel)
-    from gpujpeg_tpu.types import HuffmanType
+    from gpujpeg_jax.types import HuffmanType
 
     h, w = 32, 32
     img = make_test_rgb(h, w)
@@ -126,7 +131,7 @@ def test_device_encoder_full_stream_pil():
 def test_device_encoder_chunked_matches_single_shot():
     """The lax.map segment-chunked encode (used for very large plans)
     must be byte-identical to the single-shot path."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
+    import gpujpeg_jax.ops.jax_pipeline as jp
     h, w = 64, 80
     img = make_test_rgb(h, w)
     params = Parameters(quality=85, restart_interval=2)
@@ -169,7 +174,7 @@ def test_device_decoder_matches_golden():
 
 def test_decoder_capture_device_call_replays():
     """Decoder.capture_device_call (the first-class bench hook used by
-    bench.py / scripts/tpu_smoke.py) must expose a (fn, args) pair whose
+    bench.py / chip_smoke.py) must expose a (fn, args) pair whose
     replay reproduces the decode output exactly."""
     h, w = 64, 80
     img = make_test_rgb(h, w)
@@ -192,7 +197,7 @@ def test_device_decoder_foreign_jpeg():
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, format="JPEG", quality=90, subsampling=0)
     # force device path despite few segments
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     dec = Decoder(backend="jax")
     old = dmod.CPU_SEGMENT_THRESHOLD
     dmod.CPU_SEGMENT_THRESHOLD = 0
@@ -222,7 +227,7 @@ def test_device_decoder_foreign_jpeg_subsampled():
     dec_g.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
     want, _ = dec_g.decode(data)
 
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     dec = Decoder(backend="jax")
     old = dmod.CPU_SEGMENT_THRESHOLD
     dmod.CPU_SEGMENT_THRESHOLD = 0
@@ -238,14 +243,11 @@ def test_device_decoder_foreign_jpeg_subsampled():
 
 def test_16k_geometry_selects_chunked_path():
     """16K (132 Mpix) plans must route through the lax.map
-    segment-chunked encode when NO fused kernel variant is eligible
-    (this CPU build without interpret mode): the staged XLA formulation
-    would materialize ~18 GB at once. (On TPU the flagship
-    fused_full_words path serves 16K single-launch — round 5: 194.8 ->
-    92.1 ms — because it has no full-size XLA intermediates.)
-    Plan/geometry invariants checked without running the jit."""
-    from gpujpeg_tpu.ops.jax_pipeline import _EncContext
-    from gpujpeg_tpu.plan import make_plan
+    segment-chunked encode: the staged XLA formulation would
+    materialize ~18 GB at once. Plan/geometry invariants checked
+    without running the jit."""
+    from gpujpeg_jax.ops.jax_pipeline import _EncContext
+    from gpujpeg_jax.plan import make_plan
     params = Parameters(quality=75, restart_interval=32)
     image = ImageParameters(width=15360, height=8640,
                             color_space=ColorSpace.RGB,
@@ -264,7 +266,7 @@ def test_forced_chunked_roundtrip_psnr():
     path at test scale), cross-checked with PIL."""
     import io
     from PIL import Image as PILImage
-    import gpujpeg_tpu.ops.jax_pipeline as jp
+    import gpujpeg_jax.ops.jax_pipeline as jp
     h, w = 96, 128
     img = make_test_rgb(h, w)
     params = Parameters(quality=85, restart_interval=4)
@@ -286,7 +288,7 @@ def test_decode_batch_matches_per_frame():
     """Pipelined batch decode (deferred sync) must match per-frame
     decode exactly — three frames of one geometry share one executable;
     a fourth of a different geometry re-routes without cross-talk."""
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     params = Parameters(quality=85, restart_interval=1)
     frames = [make_test_rgb(h, w, seed=s) for s in (1, 2, 3)]
@@ -333,7 +335,7 @@ def test_decode_batch_mixed_quality_flushes_fused_groups():
     """Frames with the same geometry but different quant tables cannot
     share a fused launch (tables ride broadcast) — the batch must flush
     groups at each quality change and still match per-frame decode."""
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
@@ -357,9 +359,9 @@ def test_decode_batch_mixed_quality_flushes_fused_groups():
 
 
 def test_decode_batch_fuse_disabled_still_pipelines(monkeypatch):
-    """GPUJPEG_TPU_DEC_BATCH_FRAMES=1 disables vmapped fusing; the
+    """GPUJPEG_DEC_BATCH_FRAMES=1 disables vmapped fusing; the
     unbatched-but-deferred launches must still match per-frame decode."""
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     params = Parameters(quality=85, restart_interval=1)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
@@ -368,7 +370,7 @@ def test_decode_batch_fuse_disabled_still_pipelines(monkeypatch):
     datas = [enc.encode(make_test_rgb(h, w, seed=s).reshape(-1), params,
                         image) for s in (1, 2, 3)]
     monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
-    monkeypatch.setenv("GPUJPEG_TPU_DEC_BATCH_FRAMES", "1")
+    monkeypatch.setenv("GPUJPEG_DEC_BATCH_FRAMES", "1")
     dec = Decoder(backend="jax")
     dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
     want = [dec.decode(d)[0] for d in datas]
@@ -380,10 +382,10 @@ def test_decode_batch_fuse_disabled_still_pipelines(monkeypatch):
 def test_set_output_format_u8_gray():
     """PixelFormat.U8 has enum value 0 — a falsy-or in decode() used to
     silently ignore a requested grayscale output (round-5 soak find)."""
-    from gpujpeg_tpu.models.decoder import Decoder
-    from gpujpeg_tpu.models.encoder import Encoder
-    from gpujpeg_tpu.params import ImageParameters, Parameters
-    from gpujpeg_tpu.types import ColorSpace, PixelFormat
+    from gpujpeg_jax.models.decoder import Decoder
+    from gpujpeg_jax.models.encoder import Encoder
+    from gpujpeg_jax.params import ImageParameters, Parameters
+    from gpujpeg_jax.types import ColorSpace, PixelFormat
     import numpy as np
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)

@@ -1,22 +1,21 @@
-"""v2 gather/scatter-free entropy encoder vs the golden bit-serial coder.
+"""v2 entropy encoder vs the golden bit-serial coder.
 
-The XLA reference path of v2 runs everywhere (CPU test mesh); the Pallas
-path shares all its math through _chunk_planes/_windows and is exercised
-on TPU by the benchmark + device tests.
+The v2 formulation is plain XLA: the same code runs on the CPU test
+mesh and on the GPU.
 """
 import numpy as np
 import pytest
 
-from gpujpeg_tpu.ops import golden
-from gpujpeg_tpu.ops.entropy_v2 import (
+from gpujpeg_jax.ops import golden
+from gpujpeg_jax.ops.entropy_v2 import (
     build_packed_tables,
     build_uniform_geometry,
     encode_entropy_v2,
 )
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.plan import make_plan
-from gpujpeg_tpu.tables import default_huffman_table
-from gpujpeg_tpu.types import ColorSpace, ComponentType, HuffmanType, PixelFormat
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.plan import make_plan
+from gpujpeg_jax.tables import default_huffman_table
+from gpujpeg_jax.types import ColorSpace, ComponentType, HuffmanType, PixelFormat
 
 import jax.numpy as jnp
 
@@ -63,7 +62,7 @@ def test_v2_matches_golden(rng, interleaved, ri, w, h):
     geo = build_uniform_geometry(plan, cap_bytes_per_block=224)
     tabs = build_packed_tables(huff)
     out, out_len, seg_bits, n_ff = encode_entropy_v2(
-        jnp.asarray(coeff), geo, tabs, use_pallas=False)
+        jnp.asarray(coeff), geo, tabs)
     out = np.asarray(out).reshape(plan.n_segments, geo.cap_out_bytes)
     out_len = np.asarray(out_len)
 
@@ -93,7 +92,7 @@ def test_v2_stuffing_and_align(rng):
     geo = build_uniform_geometry(plan, cap_bytes_per_block=224)
     tabs = build_packed_tables(huff)
     out, out_len, seg_bits, n_ff = encode_entropy_v2(
-        jnp.asarray(coeff), geo, tabs, use_pallas=False)
+        jnp.asarray(coeff), geo, tabs)
     out = np.asarray(out).reshape(plan.n_segments, geo.cap_out_bytes)
     out_len = np.asarray(out_len)
     for s in range(plan.n_segments):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpujpeg_tpu import (
+from gpujpeg_jax import (
     ColorSpace, Decoder, Encoder, ImageParameters, Parameters, PixelFormat,
 )
 from tests.conftest import make_test_rgb, psnr
@@ -146,7 +146,7 @@ def test_segment_info_fast_path():
                             pixel_format=PixelFormat.PF_444_U8_P012)
     data = _encode(img.reshape(-1), params, image)
 
-    from gpujpeg_tpu.stream.reader import read_image
+    from gpujpeg_jax.stream.reader import read_image
     info = read_image(data)
     assert info.segment_info_found
 

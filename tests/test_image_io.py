@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gpujpeg_tpu.params import ImageParameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
-from gpujpeg_tpu.utils import image_io
-from gpujpeg_tpu.utils.image_io import FileFormat
+from gpujpeg_jax.params import ImageParameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
+from gpujpeg_jax.utils import image_io
+from gpujpeg_jax.utils.image_io import FileFormat
 
 
 def test_file_format_from_extension():

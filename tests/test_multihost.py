@@ -10,9 +10,9 @@ import sys
 import numpy as np
 import pytest
 
-from gpujpeg_tpu.models.encoder import Encoder
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.models.encoder import Encoder
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 from conftest import make_test_rgb
 
@@ -21,16 +21,16 @@ import os, sys
 pid = int(sys.argv[1]); port = sys.argv[2]; outdir = sys.argv[3]
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_gpujpeg_tpu")
+os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_gpujpeg_jax")
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-sys.path.insert(0, os.environ["GPUJPEG_TPU_REPO"])
-sys.path.insert(0, os.path.join(os.environ["GPUJPEG_TPU_REPO"], "tests"))
-from gpujpeg_tpu.parallel.multihost import (
+sys.path.insert(0, os.environ["GPUJPEG_REPO"])
+sys.path.insert(0, os.path.join(os.environ["GPUJPEG_REPO"], "tests"))
+from gpujpeg_jax.parallel.multihost import (
     MultiHostEncoder, MultiHostSingleImageEncoder, init_distributed)
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 from conftest import make_test_rgb
 
 init_distributed(f"localhost:{port}", num_processes=2, process_id=pid)
@@ -60,7 +60,7 @@ with open(os.path.join(outdir, f"single_p{pid}.jpg"), "wb") as f:
 # tier-1 budget makes noisy frames overflow; both processes must agree
 # to re-enter the collective tier-2 fn together (a one-sided rerun
 # would deadlock the shard_map) and still produce the standard stream
-import gpujpeg_tpu.ops.entropy_v2 as _ev2
+import gpujpeg_jax.ops.entropy_v2 as _ev2
 _ev2.seg_budget_for_quality = lambda q, bps: 8
 rng = np.random.default_rng(100 + pid)
 noisy = rng.integers(0, 256, (H, W, 3)).astype(np.uint8)
@@ -80,7 +80,7 @@ def test_two_process_distributed_encode(tmp_path):
     script = tmp_path / "worker.py"
     script.write_text(_WORKER)
     env = dict(os.environ)
-    env["GPUJPEG_TPU_REPO"] = repo
+    env["GPUJPEG_REPO"] = repo
     env.pop("XLA_FLAGS", None)
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(p), str(port), str(tmp_path)],
@@ -129,9 +129,9 @@ def test_multihost_tier2_fallback_single_process(monkeypatch):
     streams on busy frames) and rerun on the tier-2 geometry, staying
     byte-identical to the single-chip encoder."""
     import jax
-    import gpujpeg_tpu.ops.entropy_v2 as ev2
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    from gpujpeg_tpu.parallel.multihost import (
+    import gpujpeg_jax.ops.entropy_v2 as ev2
+    import gpujpeg_jax.ops.jax_pipeline as jp
+    from gpujpeg_jax.parallel.multihost import (
         MultiHostEncoder, MultiHostSingleImageEncoder)
 
     monkeypatch.setattr(ev2, "seg_budget_for_quality", lambda q, bps: 8)
@@ -164,8 +164,8 @@ def test_multihost_decoder_local_frames():
     the plain decoder bit for bit."""
     import jax
     from jax.sharding import Mesh
-    from gpujpeg_tpu.parallel import MultiHostDecoder
-    from gpujpeg_tpu.models.decoder import Decoder
+    from gpujpeg_jax.parallel import MultiHostDecoder
+    from gpujpeg_jax.models.decoder import Decoder
 
     H, W = 128, 160
     image = ImageParameters(width=W, height=H, color_space=ColorSpace.RGB,

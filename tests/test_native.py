@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from gpujpeg_tpu import native
-from gpujpeg_tpu.models.encoder import Encoder
-from gpujpeg_tpu.ops import golden
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.plan import make_plan
-from gpujpeg_tpu.tables import default_huffman_table
-from gpujpeg_tpu.types import ColorSpace, ComponentType, HuffmanType, PixelFormat
+from gpujpeg_jax import native
+from gpujpeg_jax.models.encoder import Encoder
+from gpujpeg_jax.ops import golden
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.plan import make_plan
+from gpujpeg_jax.tables import default_huffman_table
+from gpujpeg_jax.types import ColorSpace, ComponentType, HuffmanType, PixelFormat
 
 pytestmark = pytest.mark.skipif(native.lib() is None,
                                 reason="no C++ compiler available")

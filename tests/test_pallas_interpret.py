@@ -1,10 +1,9 @@
-"""Exercise the real Pallas TPU kernels (not the XLA fallbacks) on the
-CPU backend via interpreter mode — closes the device-path blind spots:
-the interleaved/subsampled decode kernel template path and the encode
-tier-1 -> tier-2 capacity fallback (VERDICT round 1, items 7).
-
-These run the exact kernel code that executes on TPU hardware; only the
-Mosaic compilation step is replaced by the Pallas interpreter.
+"""The device pipeline on both decode routes, on the CPU backend: the
+XLA lockstep decoder (the CPU route) and the Pallas Huffman kernel of
+the GPU route, run in the Pallas interpreter. Only the kernel's
+compilation for the card is replaced by the interpreter; everything
+around it (row build, tables, reorders, the dequant/IDCT tail, batching
+and sharding) is the code the GPU runs.
 """
 import io
 
@@ -14,90 +13,106 @@ from PIL import Image
 
 from conftest import make_test_rgb, psnr
 
-from gpujpeg_tpu.models.decoder import Decoder
-from gpujpeg_tpu.models.encoder import Encoder
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.models.decoder import Decoder
+from gpujpeg_jax.models.encoder import Encoder
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
+
+ROUTES = ("xla", "kernel")
 
 
 @pytest.fixture(autouse=True)
-def _interpret_mode(monkeypatch):
-    monkeypatch.setenv("GPUJPEG_TPU_PALLAS_INTERPRET", "1")
-    # fresh executable caches: the cached jits were traced without
-    # interpret mode (and vice versa afterwards)
-    import gpujpeg_tpu.ops.jax_pipeline as jp
+def _fresh_caches():
+    import gpujpeg_jax.ops.jax_pipeline as jp
     jp._ENC_CACHE.clear()
     jp._DEC_CACHE.clear()
-    jp._DEC_V2_CACHE.clear()
     yield
     jp._ENC_CACHE.clear()
     jp._DEC_CACHE.clear()
-    jp._DEC_V2_CACHE.clear()
 
 
-def _roundtrip_device(img, params, image, out_pf=PixelFormat.PF_444_U8_P012):
+def _decoder(route: str, **kw) -> Decoder:
+    """A device decoder on ``route``; the kernel runs interpreted."""
+    dec = Decoder(backend="jax", **kw)
+    dec.routes = dict(dec.routes, huffman_decode=route)
+    dec._kernel_interpret = route == "kernel"
+    dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
+    return dec
+
+
+def _sharded_decoder(mesh, route: str):
+    from gpujpeg_jax.parallel import ShardedDecoder
+    dec = ShardedDecoder(mesh)
+    dec.routes = dict(dec.routes, huffman_decode=route)
+    dec._kernel_interpret = route == "kernel"
+    return dec
+
+
+def _roundtrip_device(img, params, image, route):
     data = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     old = dmod.CPU_SEGMENT_THRESHOLD
     dmod.CPU_SEGMENT_THRESHOLD = 0      # force the device decode path
     try:
-        dec = Decoder(backend="jax")
-        dec.set_output_format(ColorSpace.RGB, out_pf)
+        dec = _decoder(route)
         raw, oi = dec.decode(data)
     finally:
         dmod.CPU_SEGMENT_THRESHOLD = old
+    assert dec.stats.host_frames == 0
     return data, raw, oi
 
 
-def test_pallas_encode_decode_noninterleaved():
+@pytest.mark.parametrize("route", ROUTES)
+def test_pallas_encode_decode_noninterleaved(route):
     h, w = 64, 80
     img = make_test_rgb(h, w)
     params = Parameters(quality=85, restart_interval=2)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
-    data, raw, _ = _roundtrip_device(img, params, image)
+    data, raw, _ = _roundtrip_device(img, params, image, route)
     pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     assert psnr(pil, img) > 32
     assert psnr(raw.reshape(h, w, 3), img) > 32
 
 
-def test_pallas_decode_interleaved_template_path():
-    """Interleaved multi-component scan drives the decoder kernel's
-    uses_tpl path (pallas_decode_v3 interleaved template)."""
+@pytest.mark.parametrize("route", ROUTES)
+def test_pallas_decode_interleaved_template_path(route):
+    """An interleaved multi-component scan drives the kernel's per-slot
+    component template."""
     h, w = 64, 96
     img = make_test_rgb(h, w)
     params = Parameters(quality=85, restart_interval=2, interleaved=True)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
-    data, raw, _ = _roundtrip_device(img, params, image)
+    data, raw, _ = _roundtrip_device(img, params, image, route)
     pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     np.testing.assert_array_less(30.0, psnr(raw.reshape(h, w, 3), pil))
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("sub", [420, 422])
-def test_pallas_decode_subsampled_device(sub):
+def test_pallas_decode_subsampled_device(sub, route):
     h, w = 64, 96
     img = make_test_rgb(h, w)
     params = Parameters(quality=90, restart_interval=2,
                         interleaved=True).with_chroma_subsampling(sub)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
-    data, raw, _ = _roundtrip_device(img, params, image)
+    data, raw, _ = _roundtrip_device(img, params, image, route)
     pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     assert psnr(raw.reshape(h, w, 3), pil) > 30
 
 
 def test_pallas_encode_tier_fallback_high_entropy(rng):
-    """Noise at Q98 blows the tier-1 typical-content budget; the encoder
-    must rerun on the tier-2 worst-case geometry and still produce a
-    stream PIL decodes (end-to-end capacity fallback)."""
+    """Noise at Q90 blows the tier-1 typical-content budget; the encoder
+    must rerun on the tier-2 worst-case geometry ON THE DEVICE (no host
+    route) and still produce a stream PIL decodes."""
     h, w = 48, 64
     img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
     params = Parameters(quality=90, restart_interval=2)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    from gpujpeg_tpu.ops.jax_pipeline import _enc_context
+    import gpujpeg_jax.ops.jax_pipeline as jp
     enc = Encoder(backend="jax")
     data = enc.encode(img.reshape(-1), params, image)
     pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
@@ -106,139 +121,14 @@ def test_pallas_encode_tier_fallback_high_entropy(rng):
     ctxs = [c for c in jp._ENC_CACHE.values()]
     assert any(c._tier2 is not None for c in ctxs), \
         "expected tier-1 overflow to engage the tier-2 geometry"
+    assert enc.stats.host_frames == 0
 
 
-def test_pallas_entropy_matches_xla_reference():
-    """The Pallas entropy kernels (stage-1 + packed merge + byte-plane
-    stuffing) must be bit-identical to the plain-XLA reference
-    formulation on the same quantized coefficients. (Whole-stream
-    equality vs the golden backend is not asserted: the device DCT is
-    f32 vs the oracle's f64, which may legitimately flip rint ties.)"""
-    import jax.numpy as jnp
-    from gpujpeg_tpu.ops import entropy_v2 as ev2
-    from gpujpeg_tpu.ops import golden
-    from gpujpeg_tpu.ops.blocks import plane_to_blocks
-    from gpujpeg_tpu.ops.preprocess import preprocess
-    from gpujpeg_tpu.plan import make_plan
-    from gpujpeg_tpu.tables import quant_table_zz
-
-    h, w = 64, 64
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=75, restart_interval=4)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    plan = make_plan(params, image)
-    quant_zz, huff = Encoder()._tables(params)
-    planes = preprocess(img.reshape(-1), image, plan, np)
-    coeff_plane = np.concatenate([
-        golden.fdct_quant(plane_to_blocks(planes[c.index], np),
-                          quant_zz[c.quant_table_index])
-        for c in plan.components])
-    coeff_scan = jnp.asarray(coeff_plane[plan.block_plane_idx])
-
-    tabs = ev2.build_packed_tables(huff)
-    geo_probe = ev2.build_uniform_geometry(plan)
-    budget = ev2.seg_budget_for_quality(params.quality, geo_probe.bps)
-    geo = ev2.build_uniform_geometry(
-        plan, cap_bytes_per_block=ev2.block_byte_budget(params.quality),
-        seg_byte_budget=min(budget, geo_probe.cap_seg_words * 4))
-
-    out_x, len_x, bits_x, _ = ev2.encode_entropy_v2(
-        coeff_scan, geo, tabs, use_pallas=False)
-    out_p, len_p, bits_p, _ = ev2.encode_entropy_v2(
-        coeff_scan, geo, tabs, use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(bits_x), np.asarray(bits_p))
-    np.testing.assert_array_equal(np.asarray(len_x), np.asarray(len_p))
-    ox = np.asarray(out_x).view(np.uint8).reshape(plan.n_segments, -1)
-    op = np.asarray(out_p).view(np.uint8).reshape(plan.n_segments, -1)
-    for s in range(plan.n_segments):
-        n = int(np.asarray(len_x)[s])
-        np.testing.assert_array_equal(ox[s, :n], op[s, :n])
-
-
-def test_fused_dct_kernel_matches_unfused(monkeypatch):
-    """The fully fused stage-1 kernel (in-kernel DC prediction + static
-    class/quantizer thresholds) must produce byte-identical streams to
-    the unfused device path on the same input."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    h, w = 64, 80
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=75, restart_interval=4)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    fused = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    monkeypatch.setenv("GPUJPEG_TPU_NO_FUSED_DCT", "1")
-    jp._ENC_CACHE.clear()
-    unfused = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    jp._ENC_CACHE.clear()
-    assert fused == unfused
-
-
-def test_full_fused_kernel_matches_separate(monkeypatch):
-    """The single-kernel entropy encode (stage-1 + in-kernel packed
-    merge + stuffing, flagship bps*W == 128 geometry) must produce
-    byte-identical streams to the separate-kernel device path."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    h, w = 128, 160
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=75, restart_interval=32)  # W=4, bps=32
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    jp._ENC_CACHE.clear()
-    full = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    (ctx,) = jp._ENC_CACHE.values()
-    assert getattr(ctx.fn, "kind", None) in ("fused_full_words",
-                                             "fused_full"), \
-        "flagship geometry must engage the single-kernel fused encode"
-    monkeypatch.setenv("GPUJPEG_TPU_NO_FULL_FUSED", "1")
-    jp._ENC_CACHE.clear()
-    separate = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    (ctx,) = jp._ENC_CACHE.values()
-    assert getattr(ctx.fn, "kind", None) == "fused"
-    jp._ENC_CACHE.clear()
-    assert full == separate
-    # cross-check against an independent decoder
-    pil = np.asarray(Image.open(io.BytesIO(full)).convert("RGB"))
-    assert psnr(pil, img) > 30
-
-
-def test_full_fused_w8_matches_staged(monkeypatch):
-    """The quality-aware restart suggestion (params.py) keeps the
-    single-kernel fused encode eligible at Q80-97 by halving the
-    interval to 16 (tier-1 word budget W=8, so bps*W==128 needs
-    bps=16). That W=8 flagship path was previously unreachable —
-    pin it byte-identical to the staged device path (identical f32
-    coefficients; golden differs only by documented f64 rounding
-    ties on unpinned content)."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    h, w = 128, 160
-    img = make_test_rgb(h, w)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    # ri=16 x W=8 == 128 lanes (the 8K-scale suggestion; this image is
-    # too small for the size heuristic to reach it — see
-    # test_suggest_restart_interval_quality_aware for the suggestion)
-    params = Parameters(quality=85, restart_interval=16)
-    jp._ENC_CACHE.clear()
-    full = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    (ctx,) = jp._ENC_CACHE.values()
-    assert getattr(ctx.fn, "kind", None) in ("fused_full_words", "fused_full"), \
-        "Q85 ri=16 must engage the single-kernel fused encode (W=8)"
-    monkeypatch.setenv("GPUJPEG_TPU_NO_FUSED_DCT", "1")
-    jp._ENC_CACHE.clear()
-    staged = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    (ctx,) = jp._ENC_CACHE.values()
-    assert getattr(ctx.fn, "kind", None) == "staged"
-    jp._ENC_CACHE.clear()
-    assert full == staged
-    pil = np.asarray(Image.open(io.BytesIO(full)).convert("RGB"))
-    assert psnr(pil, img) > 30
-
-
-def test_decoder_perf_stats_device_path():
+@pytest.mark.parametrize("route", ROUTES)
+def test_decoder_perf_stats_device_path(route):
     """CLI -v decode must fill the huffman/IDCT/postprocess phase splits
     on the device path (reference: gpujpeg_common.h:315-325)."""
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     img = make_test_rgb(h, w)
     params = Parameters(quality=85, restart_interval=2)
@@ -248,8 +138,9 @@ def test_decoder_perf_stats_device_path():
     old = dmod.CPU_SEGMENT_THRESHOLD
     dmod.CPU_SEGMENT_THRESHOLD = 0
     try:
-        dec = Decoder(backend="jax", perf_stats=True)
-        dec.decode(data)
+        dec = _decoder(route, perf_stats=True)
+        staged, _ = dec.decode(data)
+        plain, _ = _decoder(route).decode(data)
     finally:
         dmod.CPU_SEGMENT_THRESHOLD = old
     st = dec.stats
@@ -257,14 +148,14 @@ def test_decoder_perf_stats_device_path():
     assert st.duration_dct_quantization > 0
     assert st.duration_postprocessor > 0
     assert st.duration_in_gpu > 0
+    assert np.array_equal(staged, plain)
 
 
 def test_sharded_decode_v3_kernel_path():
-    """ShardedDecoder must use the Pallas v3 lockstep kernel per band
-    (round-1 verdict item 6) and match the single-chip decoder exactly."""
+    """ShardedDecoder runs the Huffman kernel per band (interpreted) and
+    matches the single-device golden decode."""
     import jax
     from jax.sharding import Mesh
-    from gpujpeg_tpu.parallel import ShardedDecoder
 
     H, W = 128, 160
     img = make_test_rgb(H, W, seed=5)
@@ -274,32 +165,20 @@ def test_sharded_decode_v3_kernel_path():
     data = Encoder(backend="golden").encode(img, params, image)
 
     devs = np.array(jax.devices()[:8]).reshape(1, 8)
-    dec = ShardedDecoder(Mesh(devs, ("frame", "seg")))
-    # fail loudly if the v3 path silently falls back
-    import gpujpeg_tpu.parallel.sharded as sh
-    called = {}
-    orig = sh.ShardedDecoder._decode_bands_v3
-
-    def spy(self, *a, **kw):
-        r = orig(self, *a, **kw)   # raises -> fallback, and we fail below
-        called["v3"] = True
-        return r
-
-    sh.ShardedDecoder._decode_bands_v3 = spy
-    try:
-        raw, out_img = dec.decode(data)
-    finally:
-        sh.ShardedDecoder._decode_bands_v3 = orig
-    assert called.get("v3"), "v3 sharded decode path not taken"
+    dec = _sharded_decoder(Mesh(devs, ("frame", "seg")), "kernel")
+    raw, out_img = dec.decode(data)
+    assert any(k[0] == "kernel" for k in dec._cache), \
+        "kernel route did not serve the bands"
     ref, _ = Decoder(backend="golden").decode(data)
     assert np.abs(raw.astype(int) - ref.astype(int)).max() <= 1
 
 
-def test_pallas_decode_corrupt_entropy_no_crash(monkeypatch, rng):
-    """Corrupt entropy bytes through the DEVICE decode kernel: the
-    in-kernel guards (l>16 fake-zero, k>63 clamps, fixed-bound loops)
-    must yield a full-size image, never a crash or hang."""
-    import gpujpeg_tpu.models.decoder as dmod
+@pytest.mark.parametrize("route", ROUTES)
+def test_pallas_decode_corrupt_entropy_no_crash(monkeypatch, rng, route):
+    """Corrupt entropy bytes through the DEVICE decode: invalid codes,
+    runs past coefficient 63 and reads past a segment must yield a
+    full-size image, never a crash or hang."""
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     img = make_test_rgb(h, w)
     params = Parameters(quality=85, restart_interval=4)
@@ -313,97 +192,41 @@ def test_pallas_decode_corrupt_entropy_no_crash(monkeypatch, rng):
         i = int(rng.integers(sos + 20, len(buf) - 3))
         if buf[i] != 0xFF and buf[i - 1] != 0xFF:   # keep marker structure
             buf[i] ^= 0x55
-    from gpujpeg_tpu.stream.reader import JpegParseError
+    from gpujpeg_jax.stream.reader import JpegParseError
     try:
-        dec = Decoder(backend="jax")
-        dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
-        raw, oi = dec.decode(bytes(buf))
+        raw, oi = _decoder(route).decode(bytes(buf))
         assert np.asarray(raw).size == oi.width * oi.height * 3
     except JpegParseError:
         pass  # clean parse error acceptable
 
 
-def test_encode_kernel_downgrade_chain(monkeypatch):
-    """A fused encode variant that raises at call time must degrade to
-    the next-simpler device path (not crash), producing the identical
-    stream."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    h, w = 128, 160
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=75, restart_interval=32)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    jp._ENC_CACHE.clear()
-    want = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-
-    # make the fused_full variant blow up at call time
-    jp._ENC_CACHE.clear()
-    monkeypatch.delenv("GPUJPEG_TPU_STRICT", raising=False)
-    orig_build = jp._EncContext._build_fn
-
-    def sabotage(self, geo):
-        fn = orig_build(self, geo)
-        # blow up BOTH fused_full forms: the words primary must fall to
-        # the flat form (via the _REPREP re-prep), then to "fused"
-        if getattr(fn, "kind", None) in ("fused_full_words", "fused_full"):
-            def boom(raw):
-                raise RuntimeError("synthetic Mosaic failure")
-            boom.kind = fn.kind
-            boom.input_form = getattr(fn, "input_form", "flat")
-            if getattr(fn, "flat_form", None) is not None:
-                def boom_flat(raw):
-                    raise RuntimeError("synthetic Mosaic failure")
-                boom_flat.kind = "fused_full"
-                boom_flat.input_form = "flat"
-                boom.flat_form = boom_flat
-            return boom
-        return fn
-
-    monkeypatch.setattr(jp._EncContext, "_build_fn", sabotage)
-    got = Encoder(backend="jax").encode(img.reshape(-1), params, image)
-    jp._ENC_CACHE.clear()
-    assert got == want
-
-
 def test_decode_v2_large_wcap_kernel(monkeypatch):
-    """Force the v2 column-state kernel (used when per-segment streams
-    exceed the v3 data-tile budget) and check bit-identity with v3."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    import gpujpeg_tpu.models.decoder as dmod
-    h, w = 128, 160
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=92, restart_interval=16)
+    """Large per-segment streams (Q100 noise, ri=32: hundreds of words
+    per segment) through the kernel route must match the XLA route
+    exactly — the kernel handles every row capacity."""
+    import gpujpeg_jax.models.decoder as dmod
+    import gpujpeg_jax.ops.jax_pipeline as jp
+    h, w = 64, 128
+    rng = np.random.default_rng(9)
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    params = Parameters(quality=100, restart_interval=32)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
     data = Encoder(backend="golden").encode(img.reshape(-1), params, image)
     monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
-
-    def run():
-        jp._DEC_V2_CACHE.clear()
-        dec = Decoder(backend="jax")
-        dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
-        raw, _ = dec.decode(data)
-        jp._DEC_V2_CACHE.clear()
-        return np.asarray(raw)
-
-    v3 = run()
-    # drop the shared threshold: routes to v2 AND rounds row capacity
-    # to the 128-word multiples its window refill requires
-    import gpujpeg_tpu.ops.pallas_decode as pd
-    monkeypatch.setattr(pd, "V3_WCAP_MAX", 0)
-    v2 = run()
-    assert np.array_equal(v3, v2)
+    outs = {r: np.asarray(_decoder(r).decode(data)[0]) for r in ROUTES}
+    assert np.array_equal(outs["xla"], outs["kernel"])
+    wcaps = [k[4][0] for k in jp._DEC_CACHE if k[3] == "kernel"]
+    assert wcaps and max(wcaps) > 384, wcaps
 
 
 def test_sharded_pallas_encode_decode_bit_identical():
-    """Sharded encode/decode with the REAL Pallas kernels inside
-    shard_map (the path multi-chip TPU hardware takes — the CPU suite's
-    XLA fallback hid a shard_map vma-check failure here): streams must
-    stay byte-identical to the single-chip encoder, decode bit-identical
-    to the plain decoder."""
+    """Sharded encode/decode inside shard_map: streams byte-identical to
+    the single-device encoder, decode (kernel route per band)
+    bit-identical to the single-device decoder."""
     import jax
     from jax.sharding import Mesh
-    from gpujpeg_tpu.parallel import ShardedDecoder, ShardedEncoder
+    from gpujpeg_jax.parallel import ShardedEncoder
 
     h, w = 64, 80
     img = make_test_rgb(h, w)
@@ -418,18 +241,17 @@ def test_sharded_pallas_encode_decode_bit_identical():
     got = enc.encode(img, params, image)
     assert got == want
 
-    dec = Decoder(backend="jax")
-    dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
-    ref, _ = dec.decode(want)
-    raw, _ = ShardedDecoder(mesh).decode(want)
+    ref, _ = _decoder("kernel").decode(want)
+    raw, _ = _sharded_decoder(mesh, "kernel").decode(want)
     assert np.array_equal(np.asarray(raw).reshape(-1),
                           np.asarray(ref).reshape(-1))
 
 
-def test_decode_batch_pipelined_device_path(monkeypatch):
-    """decode_batch's deferred-sync launches through the Pallas v3
-    pipeline must match per-frame synchronous decodes exactly."""
-    import gpujpeg_tpu.models.decoder as dmod
+@pytest.mark.parametrize("route", ROUTES)
+def test_decode_batch_pipelined_device_path(monkeypatch, route):
+    """decode_batch's deferred-sync, fused (vmapped) launches must match
+    per-frame synchronous decodes exactly."""
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     params = Parameters(quality=85, restart_interval=1)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
@@ -438,8 +260,7 @@ def test_decode_batch_pipelined_device_path(monkeypatch):
     datas = [enc.encode(make_test_rgb(h, w, seed=s).reshape(-1), params,
                         image) for s in (1, 2, 3)]
     monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
-    dec = Decoder(backend="jax")
-    dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
+    dec = _decoder(route)
     want = [dec.decode(d)[0] for d in datas]
     got = dec.decode_batch(datas)
     for (g, _), w_ in zip(got, want):
@@ -448,10 +269,10 @@ def test_decode_batch_pipelined_device_path(monkeypatch):
 
 
 def test_encode_batch_pipelined_device_path(rng):
-    """Batch encode through the Pallas kernels: byte-identical to
-    per-frame encodes, including a noise frame that overflows the
-    tier-1 capacity mid-batch (re-run synchronously through the tier
-    chain without disturbing its neighbors)."""
+    """Batch encode: byte-identical to per-frame encodes, including a
+    noise frame that overflows the tier-1 capacity mid-batch (re-run
+    synchronously through the tier chain without disturbing its
+    neighbors)."""
     h, w = 64, 80
     params = Parameters(quality=98, restart_interval=4)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
@@ -463,6 +284,7 @@ def test_encode_batch_pipelined_device_path(rng):
     want = [enc.encode(f, params, image) for f in frames]
     got = enc.encode_batch(frames, params, image)
     assert got == want
+    assert enc.stats.host_frames == 0
 
 
 def test_decode_wcap_bucketing_reuses_executable(monkeypatch):
@@ -471,8 +293,8 @@ def test_decode_wcap_bucketing_reuses_executable(monkeypatch):
     (without bucketing, every video frame whose max segment grew would
     recompile); a drastically busier stream may open a second bucket but
     must still decode correctly."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    import gpujpeg_tpu.models.decoder as dmod
+    import gpujpeg_jax.ops.jax_pipeline as jp
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
     params = Parameters(quality=85, restart_interval=4)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
@@ -481,60 +303,54 @@ def test_decode_wcap_bucketing_reuses_executable(monkeypatch):
     d1 = enc.encode(make_test_rgb(h, w, seed=1).reshape(-1), params, image)
     d2 = enc.encode(make_test_rgb(h, w, seed=2).reshape(-1), params, image)
     monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
-    jp._DEC_V2_CACHE.clear()
-    dec = Decoder(backend="jax")
-    dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
+    dec = _decoder("kernel")
     r1, _ = dec.decode(d1)
-    assert len(jp._DEC_V2_CACHE) == 1
+    assert len(jp._DEC_CACHE) == 1
     r2, _ = dec.decode(d2)
-    assert len(jp._DEC_V2_CACHE) == 1, "same-family frame recompiled"
+    assert len(jp._DEC_CACHE) == 1, "same-family frame recompiled"
     # noise at Q98 blows far past the smooth frames' bucket
     import dataclasses
     rng = np.random.default_rng(3)
     noisy = rng.integers(0, 256, h * w * 3, dtype=np.uint8)
     d3 = enc.encode(noisy, dataclasses.replace(params, quality=98), image)
     r3, _ = dec.decode(d3)
+    ref3, _ = Decoder(backend="golden").decode(d3)
+    assert np.abs(r3.astype(int) - ref3.astype(int)).max() <= 1
     assert psnr(np.asarray(r1).reshape(h, w, 3),
                 make_test_rgb(h, w, seed=1)) > 30
-    jp._DEC_V2_CACHE.clear()
 
 
 def test_decoder_init_warms_real_content_bucket(monkeypatch):
     """Decoder.init() must warm the wcap bucket REAL content lands in:
     decoding a natural-statistics frame right after init() must not
-    grow the executable cache (the old all-zero warm frame compressed
-    to almost nothing, landed in a smaller bucket, and left the first
-    real frame to pay a fresh compile — round-3 verdict flag)."""
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    import gpujpeg_tpu.models.decoder as dmod
+    grow the executable cache (an all-zero warm frame compresses to
+    almost nothing, lands in a smaller bucket, and leaves the first real
+    frame to pay a fresh compile)."""
+    import gpujpeg_jax.ops.jax_pipeline as jp
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 64, 80
-    # ri=8 is a geometry where the old zero-frame warm measurably lands
-    # in a SMALLER wcap bucket than natural content (vacuity-checked)
     params = Parameters(quality=75, restart_interval=8)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)
     monkeypatch.setattr(dmod, "CPU_SEGMENT_THRESHOLD", 0)
-    jp._DEC_V2_CACHE.clear()
-    dec = Decoder(backend="jax")
-    dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
+    dec = _decoder("kernel")
     dec.init(params, image)
-    warmed = len(jp._DEC_V2_CACHE)
+    warmed = len(jp._DEC_CACHE)
     assert warmed >= 1
     data = Encoder(backend="golden").encode(
         make_test_rgb(h, w, seed=3).reshape(-1), params, image)
     raw, _ = dec.decode(data)
-    assert len(jp._DEC_V2_CACHE) == warmed, \
+    assert len(jp._DEC_CACHE) == warmed, \
         "first real-content decode after init() compiled a new executable"
     assert psnr(np.asarray(raw).reshape(h, w, 3),
                 make_test_rgb(h, w, seed=3)) > 30
-    jp._DEC_V2_CACHE.clear()
 
 
 def test_encode_batch_fused_chunks(rng, monkeypatch):
     """Fused B-frame launches (leading batch dim via vmap over the
     encode context): multi-chunk, odd tail (padded, outputs dropped)
     and an overflow frame mid-chunk — byte-identical to per-frame."""
-    monkeypatch.setenv("GPUJPEG_TPU_BATCH_FRAMES", "2")
+    monkeypatch.setenv("GPUJPEG_BATCH_FRAMES", "2")
     h, w = 64, 80
     params = Parameters(quality=95, restart_interval=4)
     image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
@@ -547,187 +363,11 @@ def test_encode_batch_fused_chunks(rng, monkeypatch):
     assert got == want
 
 
-def test_unblockify_bands_matches_blocks_to_plane():
-    """The Pallas in-VMEM un-blockify (word-packed IDCT output, r-major
-    row-collapse) must be bit-identical to the XLA blocks_to_plane tail
-    for every geometry shape class (odd block columns, non-vreg-aligned
-    widths, single-band planes)."""
-    import jax
-    import jax.numpy as jnp
-    from gpujpeg_tpu.ops.blocks import blocks_to_plane
-    from gpujpeg_tpu.ops.dct import (dequant_idct_device,
-                                     dequant_idct_words, idct_operator_f32)
-    from gpujpeg_tpu.ops.pallas_decode import unblockify_bands
-    from gpujpeg_tpu.tables import quant_table_zz
-    from gpujpeg_tpu.types import ComponentType
-
-    rng = np.random.default_rng(0)
-    qzz = tuple(int(x) for x in quant_table_zz(ComponentType.LUMINANCE, 75))
-    W = jnp.asarray(idct_operator_f32(qzz))
-    for dh, dw in [(16, 32), (24, 48), (8, 16), (16, 216), (8, 8)]:
-        n = dh // 8 * (dw // 8)
-        coeff = rng.integers(-300, 300, (n, 64)).astype(np.int32)
-        coeff[:, 32:] = 0
-        ref = np.asarray(blocks_to_plane(
-            dequant_idct_device(jnp.asarray(coeff), W), dh, dw, jnp))
-        out = unblockify_bands(
-            dequant_idct_words(jnp.asarray(coeff), W), dh, dw)
-        got = np.asarray(jax.lax.bitcast_convert_type(
-            out, jnp.uint8)).reshape(dh, dw)
-        np.testing.assert_array_equal(ref, got, err_msg=f"{dh}x{dw}")
-
-
-def test_decode_band_knob_bit_identical(monkeypatch):
-    """GPUJPEG_TPU_DEC_BAND=1 (Pallas un-blockify decode tail) must
-    produce the same raster as the default XLA tail."""
-    h, w = 64, 80
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=85, restart_interval=2)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    data, raw, _ = _roundtrip_device(img, params, image)
-    monkeypatch.setenv("GPUJPEG_TPU_DEC_BAND", "1")
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    jp._DEC_V2_CACHE.clear()
-    _, raw_band, _ = _roundtrip_device(img, params, image)
-    np.testing.assert_array_equal(np.asarray(raw), np.asarray(raw_band))
-
-
-
-
-def test_px_tail_matches_plan_tail(monkeypatch):
-    """The fused pixel-words decode tail (run.pixels: in-kernel MXU
-    dequant+IDCT + word pack + un-blockify + word-domain postprocess)
-    produces the IDENTICAL raw buffer to the plan (coefficient) tail in
-    exact arithmetic. 128x512 ri=32: flagship geometry with block rows
-    holding whole segments (px-tail eligibility needs data_width/8 %
-    bps == 0), unique to this test's caches."""
-    import gpujpeg_tpu.models.decoder as dmod
-    h, w = 128, 512
-    img = make_test_rgb(h, w)
-    params = Parameters(quality=75, restart_interval=32, interleaved=False)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    data = Encoder(backend="golden").encode(img.reshape(-1), params, image)
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
-    try:
-        outs = {}
-        for px in ("0", "1"):
-            monkeypatch.setenv("GPUJPEG_TPU_DEC_PX", px)
-            dec = Decoder(backend="jax")
-            dec.set_output_format(ColorSpace.RGB,
-                                  PixelFormat.PF_444_U8_P012)
-            raw, _ = dec.decode(data)
-            outs[px] = np.asarray(raw).reshape(-1)
-    finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
-    assert outs["1"].dtype == np.uint8
-    assert np.array_equal(outs["0"], outs["1"])
-    # and the px tail actually served (eligibility didn't silently fail)
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    assert any(getattr(f, "px_tail", False)
-               for f in jp._DEC_V2_CACHE.values())
-
-
-def test_px_tail_decode_batch(monkeypatch):
-    """decode_batch's fused/vmapped launch composes with the px tail."""
-    import gpujpeg_tpu.models.decoder as dmod
-    h, w = 64, 256
-    params = Parameters(quality=75, restart_interval=32, interleaved=False)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    frames = [make_test_rgb(h, w, seed=s) for s in (1, 2, 3)]
-    datas = [Encoder(backend="golden").encode(f.reshape(-1), params, image)
-             for f in frames]
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
-    try:
-        dec = Decoder(backend="jax")
-        dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
-        outs = dec.decode_batch(datas)
-        singles = [dec.decode(d)[0] for d in datas]
-    finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
-    assert len(outs) == 3
-    for (raw, _), want in zip(outs, singles):
-        assert np.array_equal(np.asarray(raw).reshape(-1),
-                              np.asarray(want).reshape(-1))
-
-
-def test_sharded_px_band_decode_matches_single_chip():
-    """Sharded decode bands on the px tail must produce the
-    byte-identical frame to the single-chip device decode (the
-    multi-chip invariant), with the px fn actually serving."""
-    import dataclasses
-    from jax.sharding import Mesh
-    import jax
-    import gpujpeg_tpu.models.decoder as dmod
-    from gpujpeg_tpu.parallel import ShardedDecoder, ShardedEncoder
-    from gpujpeg_tpu.parallel.sharded import choose_restart_interval
-
-    h, w = 128, 512
-    img = make_test_rgb(h, w, seed=11)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    params = Parameters(quality=75, interleaved=False)
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
-                ("frame", "seg"))
-    ri = choose_restart_interval(params, image, 4)
-    params = dataclasses.replace(params, restart_interval=ri)
-    data = ShardedEncoder(mesh).encode(img, params, image)
-    dec = ShardedDecoder(mesh)
-    raw, _ = dec.decode(data)
-    assert any(k[0] == "dec_v3" and k[-2] is True
-               for k in dec._cache if isinstance(k, tuple)), \
-        "px band tail did not serve"
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
-    try:
-        single, _ = Decoder(backend="jax").decode(data)
-    finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
-    assert np.array_equal(np.asarray(raw).reshape(-1),
-                          np.asarray(single).reshape(-1))
-
-
-def test_px_tail_w8_geometry(monkeypatch):
-    """The Q80-97 flagship family (ri=16, tier-1 word budget W=8) must
-    also serve the px decode tail and match the plan tail exactly
-    (eligibility: data_width/8 % 16 == 0 -> width % 1024... 128x1024
-    keeps bps=16 rows whole)."""
-    import gpujpeg_tpu.models.decoder as dmod
-    h, w = 64, 1024
-    img = make_test_rgb(h, w, seed=21)
-    params = Parameters(quality=85, restart_interval=16, interleaved=False)
-    image = ImageParameters(width=w, height=h, color_space=ColorSpace.RGB,
-                            pixel_format=PixelFormat.PF_444_U8_P012)
-    data = Encoder(backend="golden").encode(img.reshape(-1), params, image)
-    old = dmod.CPU_SEGMENT_THRESHOLD
-    dmod.CPU_SEGMENT_THRESHOLD = 0
-    try:
-        outs = {}
-        for px in ("0", "1"):
-            monkeypatch.setenv("GPUJPEG_TPU_DEC_PX", px)
-            dec = Decoder(backend="jax")
-            dec.set_output_format(ColorSpace.RGB,
-                                  PixelFormat.PF_444_U8_P012)
-            raw, _ = dec.decode(data)
-            outs[px] = np.asarray(raw).reshape(-1)
-    finally:
-        dmod.CPU_SEGMENT_THRESHOLD = old
-    assert np.array_equal(outs["0"], outs["1"])
-    import gpujpeg_tpu.ops.jax_pipeline as jp
-    assert any(getattr(f, "px_tail", False)
-               for f in jp._DEC_V2_CACHE.values())
-
-
 def test_device_words_transcode_chain():
-    """decode_to_device's px-tail output (int32 raw words) feeds the
-    encoder's words front end directly — the zero-copy transcode chain.
-    The re-encoded stream must byte-match encoding the equivalent host
-    bytes."""
-    import gpujpeg_tpu.models.decoder as dmod
+    """decode_to_device's device-resident raw image feeds the encoder
+    directly (no host round trip): the re-encoded stream must byte-match
+    encoding the same bytes from the host."""
+    import gpujpeg_jax.models.decoder as dmod
     h, w = 128, 512
     img = make_test_rgb(h, w, seed=31)
     params = Parameters(quality=75, restart_interval=32, interleaved=False)
@@ -737,12 +377,12 @@ def test_device_words_transcode_chain():
     old = dmod.CPU_SEGMENT_THRESHOLD
     dmod.CPU_SEGMENT_THRESHOLD = 0
     try:
-        dec = Decoder(backend="jax")
-        dec.set_output_format(ColorSpace.RGB, PixelFormat.PF_444_U8_P012)
+        dec = _decoder("kernel")
         raw_dev, _ = dec.decode_to_device(data)
-        assert raw_dev.dtype.name == "int32"   # px tail words
+        assert not isinstance(raw_dev, np.ndarray)   # stayed on device
+        assert raw_dev.dtype.name == "uint8"
         data2 = Encoder(backend="jax").encode(raw_dev, params, image)
-        host_bytes = np.asarray(raw_dev).view("<u1").reshape(-1)
+        host_bytes = np.asarray(raw_dev).reshape(-1)
         want = Encoder(backend="jax").encode(host_bytes, params, image)
     finally:
         dmod.CPU_SEGMENT_THRESHOLD = old

@@ -4,10 +4,10 @@ test_common.sh:17) and the quality/size table (README.md:147-167)."""
 import numpy as np
 import pytest
 
-from gpujpeg_tpu.models.decoder import Decoder
-from gpujpeg_tpu.models.encoder import Encoder
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.models.decoder import Decoder
+from gpujpeg_jax.models.encoder import Encoder
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 from conftest import make_natural_rgb, make_test_rgb, psnr
 
@@ -39,8 +39,8 @@ def test_q100_roundtrip_psnr(pf, cs, sub, interleaved):
     """Q100 round trip must reach >= 40 dB on every config, subsampled
     included, on a 1080p-class natural-statistics frame (reference
     oracle: colors/test_common.sh:17 on a 1920x1080 camera fixture)."""
-    from gpujpeg_tpu.ops.preprocess import pack_raw, unpack_raw
-    from gpujpeg_tpu.ops.colorspace import transform
+    from gpujpeg_jax.ops.preprocess import pack_raw, unpack_raw
+    from gpujpeg_jax.ops.colorspace import transform
 
     H, W = 1080, 1920
     rgb = make_natural_rgb(H, W, seed=11)
@@ -113,7 +113,7 @@ def test_decode_output_format_conversion():
 def test_decoder_init_and_memory_helpers():
     """Decoder.init pre-initializes (reference: gpujpeg_decoder_init);
     Encoder.max_pixels/max_memory budget estimates round-trip."""
-    from gpujpeg_tpu import Decoder, Encoder
+    from gpujpeg_jax import Decoder, Encoder
     params = Parameters(quality=80, restart_interval=4)
     image = ImageParameters(width=48, height=32, color_space=ColorSpace.RGB,
                             pixel_format=PixelFormat.PF_444_U8_P012)

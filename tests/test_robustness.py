@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpujpeg_tpu.models.decoder import Decoder
-from gpujpeg_tpu.models.encoder import Encoder
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.stream.reader import JpegParseError
-from gpujpeg_tpu.tools.reformat import reformat
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.models.decoder import Decoder
+from gpujpeg_jax.models.encoder import Encoder
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.stream.reader import JpegParseError
+from gpujpeg_jax.tools.reformat import reformat
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 from conftest import make_test_rgb, psnr
 
@@ -67,7 +67,7 @@ def test_reformat_adds_segment_info_losslessly():
     # strip our own APP13 by re-encoding without segment_info (default) —
     # then reformat must add it back
     out = reformat(data)
-    from gpujpeg_tpu.stream.reader import get_image_info, read_image
+    from gpujpeg_jax.stream.reader import get_image_info, read_image
     info = get_image_info(out)
     assert info.segment_info_found
     # PIL still decodes the reformatted stream identically
@@ -185,11 +185,11 @@ def test_decode_batch_corrupt_frame_raises_and_recovers():
     """A corrupt stream mid-batch raises JpegParseError (parse happens
     at launch time) and must leave the decoder usable: the deferred-sync
     flag is restored so later decodes run normally."""
-    from gpujpeg_tpu.models.decoder import Decoder
-    from gpujpeg_tpu.models.encoder import Encoder
-    from gpujpeg_tpu.params import ImageParameters, Parameters
-    from gpujpeg_tpu.stream.reader import JpegParseError
-    from gpujpeg_tpu.types import ColorSpace, PixelFormat
+    from gpujpeg_jax.models.decoder import Decoder
+    from gpujpeg_jax.models.encoder import Encoder
+    from gpujpeg_jax.params import ImageParameters, Parameters
+    from gpujpeg_jax.stream.reader import JpegParseError
+    from gpujpeg_jax.types import ColorSpace, PixelFormat
     from conftest import make_test_rgb
 
     h, w = 32, 48
@@ -213,11 +213,11 @@ def test_fuzz_mutated_streams_never_crash():
     internal IndexError/KeyError/assert. (The full fuzz campaign that
     drove the reader's validation hardening ran 16k+ mutations; this
     keeps a fast regression tripwire.)"""
-    from gpujpeg_tpu.models.decoder import Decoder
-    from gpujpeg_tpu.models.encoder import Encoder
-    from gpujpeg_tpu.params import ImageParameters, Parameters
-    from gpujpeg_tpu.stream.reader import JpegParseError
-    from gpujpeg_tpu.types import ColorSpace, PixelFormat
+    from gpujpeg_jax.models.decoder import Decoder
+    from gpujpeg_jax.models.encoder import Encoder
+    from gpujpeg_jax.params import ImageParameters, Parameters
+    from gpujpeg_jax.stream.reader import JpegParseError
+    from gpujpeg_jax.types import ColorSpace, PixelFormat
     from conftest import make_test_rgb
 
     h, w = 48, 64
@@ -252,9 +252,9 @@ def test_corrupt_seginfo_offsets_fall_back_to_byte_parse():
     consistency the same way it validates RST sequences,
     gpujpeg_reader.c:1058-1126)."""
     img, _ = _sample_jpeg(H=64, W=64, ri=2)
-    from gpujpeg_tpu.models.encoder import Encoder
-    from gpujpeg_tpu.params import ImageParameters, Parameters
-    from gpujpeg_tpu.types import ColorSpace, PixelFormat
+    from gpujpeg_jax.models.encoder import Encoder
+    from gpujpeg_jax.params import ImageParameters, Parameters
+    from gpujpeg_jax.types import ColorSpace, PixelFormat
     p = Parameters(quality=85, restart_interval=2, segment_info=True)
     im = ImageParameters(width=64, height=64, color_space=ColorSpace.RGB,
                          pixel_format=PixelFormat.PF_444_U8_P012)

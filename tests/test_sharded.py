@@ -11,11 +11,11 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from gpujpeg_tpu.models.encoder import Encoder
-from gpujpeg_tpu.models.decoder import Decoder
-from gpujpeg_tpu.params import ImageParameters, Parameters
-from gpujpeg_tpu.parallel import ShardedEncoder, choose_restart_interval, plan_bands
-from gpujpeg_tpu.types import ColorSpace, PixelFormat
+from gpujpeg_jax.models.encoder import Encoder
+from gpujpeg_jax.models.decoder import Decoder
+from gpujpeg_jax.params import ImageParameters, Parameters
+from gpujpeg_jax.parallel import ShardedEncoder, choose_restart_interval, plan_bands
+from gpujpeg_jax.types import ColorSpace, PixelFormat
 
 from conftest import make_test_rgb, psnr
 
@@ -82,7 +82,7 @@ def test_plan_bands_rejects_misaligned():
 
 
 def test_sharded_decode_round_trip():
-    from gpujpeg_tpu.parallel import ShardedDecoder
+    from gpujpeg_jax.parallel import ShardedDecoder
     H, W = 128, 160
     img = make_test_rgb(H, W, seed=5)
     image = ImageParameters(width=W, height=H, color_space=ColorSpace.RGB,
@@ -100,7 +100,7 @@ def test_sharded_decode_round_trip():
 
 
 def test_sharded_decode_fallback_non_aligned():
-    from gpujpeg_tpu.parallel import ShardedDecoder
+    from gpujpeg_jax.parallel import ShardedDecoder
     # 40-pixel height cannot split into 8 MCU-row bands -> silent fallback
     H, W = 40, 64
     img = make_test_rgb(H, W, seed=6)
@@ -117,8 +117,8 @@ def test_sharded_tier2_fallback_high_entropy(monkeypatch):
     geometry instead of raising (round-1 advisor finding), and stay
     bit-identical to the single-chip encoder. The tiny forced budget
     makes the overflow deterministic."""
-    import gpujpeg_tpu.parallel.sharded as sh
-    import gpujpeg_tpu.ops.entropy_v2 as ev2
+    import gpujpeg_jax.parallel.sharded as sh
+    import gpujpeg_jax.ops.entropy_v2 as ev2
     monkeypatch.setattr(ev2, "seg_budget_for_quality", lambda q, bps: 8)
     rng = np.random.default_rng(5)
     H, W = 64, 64
@@ -127,7 +127,7 @@ def test_sharded_tier2_fallback_high_entropy(monkeypatch):
                             pixel_format=PixelFormat.PF_444_U8_P012)
     params = Parameters(quality=90, restart_interval=2)
 
-    import gpujpeg_tpu.ops.jax_pipeline as jp
+    import gpujpeg_jax.ops.jax_pipeline as jp
     jp._ENC_CACHE.clear()     # cached contexts were built with real budgets
     single = Encoder(backend="jax").encode(img, params, image)
     enc = ShardedEncoder(_mesh(1, 8))
@@ -142,7 +142,7 @@ def test_sharded_decode_reuses_executable():
     """Repeat sharded decodes of same-geometry streams must reuse ONE
     cached jitted shard_map — a fresh jit(closure) per call misses
     jit's identity-keyed cache and recompiles every frame."""
-    from gpujpeg_tpu.parallel import ShardedDecoder
+    from gpujpeg_jax.parallel import ShardedDecoder
 
     h, w = 64, 96
     params = Parameters(quality=85, restart_interval=2)
@@ -163,7 +163,7 @@ def test_sharded_decode_batch_matches_per_frame():
     """ShardedDecoder.decode_batch (deferred band fetch) must match
     per-frame decodes exactly, including an infeasible-geometry frame
     that falls back to the single-chip decoder mid-batch."""
-    from gpujpeg_tpu.parallel import ShardedDecoder
+    from gpujpeg_jax.parallel import ShardedDecoder
 
     h, w = 64, 96
     params = Parameters(quality=85, restart_interval=2)

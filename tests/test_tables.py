@@ -6,8 +6,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gpujpeg_tpu import tables
-from gpujpeg_tpu.types import ComponentType, HuffmanType
+from gpujpeg_jax import tables
+from gpujpeg_jax.ops import golden
+from gpujpeg_jax.types import ComponentType, HuffmanType
 
 
 def test_zigzag_roundtrip():
@@ -78,7 +79,7 @@ def test_huffman_lut16_agrees_with_serial_tables():
 def test_default_tables_match_pil_libjpeg_stream():
     """PIL (libjpeg) writes the Annex-K default tables when optimize=False;
     our DHT/DQT must parse back to the same bits/values."""
-    from gpujpeg_tpu.stream.reader import read_image
+    from gpujpeg_jax.stream.reader import read_image
 
     img = Image.fromarray(np.zeros((64, 64, 3), dtype=np.uint8))
     buf = io.BytesIO()
@@ -106,35 +107,39 @@ def test_fdct_idct_roundtrip_lossless_at_q1_tables():
     rng = np.random.default_rng(0)
     blocks = rng.integers(0, 256, (32, 64)).astype(np.uint8)
     ones = np.ones(64, dtype=np.int32)
-    M, bias = tables.fdct_quant_matrix(ones)
-    W = tables.idct_dequant_matrix(ones)
-    coeff = np.rint(blocks.astype(np.float64) @ M - bias)
-    back = np.clip(np.rint(coeff @ W + 128.0), 0, 255)
+    coeff = golden.fdct_quant(blocks, ones)
+    back = golden.dequant_idct(coeff, ones)
     # with quant=1 the only loss is coefficient rounding: max error 1
-    assert np.abs(back - blocks).max() <= 1
+    assert np.abs(back.astype(int) - blocks).max() <= 1
 
 
 def test_suggest_restart_interval_quality_aware():
-    """pow2 + quality: the suggestion keeps the flagship fused encode
-    eligible (bps * tier-1 words_per_block == 128; block_byte_budget,
-    ops/entropy_v2.py). Quality omitted -> reference-shaped heuristic
-    unchanged (gpujpeg_encoder.c:256-283)."""
-    from gpujpeg_tpu.params import ImageParameters, suggest_restart_interval
-    from gpujpeg_tpu.types import ColorSpace, PixelFormat
+    """The suggestion depends on the image geometry alone: every quality
+    of a sweep gets the same interval (the device encode has no
+    quality-dependent kernel eligibility to protect). pow2 rounds the
+    reference heuristic (gpujpeg_encoder.c:256-283) to the nearest power
+    of two for the entropy stage's merge tree."""
+    from gpujpeg_jax.params import ImageParameters, suggest_restart_interval
+    from gpujpeg_jax.types import ColorSpace, PixelFormat
+    import inspect
+    assert "quality" not in inspect.signature(
+        suggest_restart_interval).parameters
     img = ImageParameters(width=7680, height=4320,
                           color_space=ColorSpace.RGB,
                           pixel_format=PixelFormat.PF_444_U8_P012)
-    base = suggest_restart_interval(img, subsampled=False,
-                                    interleaved=False, pow2=True)
-    assert base == 32
-    for q, want in ((10, 32), (75, 32), (80, 16), (90, 16), (97, 16),
-                    (98, 32), (100, 32)):   # W=56 has no 128-lane fit
-        got = suggest_restart_interval(img, subsampled=False,
-                                       interleaved=False, pow2=True,
-                                       quality=q)
-        assert got == want, (q, got, want)
-    # interleaved: eligibility clamp does not apply
+    # reference: 12 MCUs x 3 components at > 9 Mpix; pow2 -> 32
+    assert suggest_restart_interval(img, subsampled=False,
+                                    interleaved=False) == 36
+    assert suggest_restart_interval(img, subsampled=False,
+                                    interleaved=False, pow2=True) == 32
+    # interleaved 4:2:0 halves the interval (12 -> 6; a tie rounds
+    # down: pow2 -> 4)
+    assert suggest_restart_interval(img, subsampled=True,
+                                    interleaved=True) == 6
     assert suggest_restart_interval(img, subsampled=True, interleaved=True,
-                                    pow2=True, quality=90) == \
-        suggest_restart_interval(img, subsampled=True, interleaved=True,
-                                 pow2=True)
+                                    pow2=True) == 4
+    hd = ImageParameters(width=1920, height=1080,
+                         color_space=ColorSpace.RGB,
+                         pixel_format=PixelFormat.PF_444_U8_P012)
+    assert suggest_restart_interval(hd, subsampled=False, interleaved=False,
+                                    pow2=True) == 16   # 8 x 3 = 24 -> 16
